@@ -8,12 +8,12 @@ histograms the detector spot.
 
 import numpy as np
 
-from optics_design_workbench_tpu.models import (Scene, PointSource,
-                                                OpticalGroup)
-from optics_design_workbench_tpu.geometry import surfaces as S
-from optics_design_workbench_tpu.geometry import transforms as T
-from optics_design_workbench_tpu import simulation
-from optics_design_workbench_tpu.jupyter_utils import Document
+from optics_design_workbench.models import (Scene, PointSource,
+                                            OpticalGroup)
+from optics_design_workbench.geometry import surfaces as S
+from optics_design_workbench.geometry import transforms as T
+from optics_design_workbench import simulation
+from optics_design_workbench.jupyter_utils import Document
 
 
 def buildScene(path='example1'):

@@ -6,8 +6,8 @@ as the headline benchmark (bench.py).
 
 import numpy as np
 
-from optics_design_workbench_tpu import benchmarks, simulation
-from optics_design_workbench_tpu.jupyter_utils import Document
+from optics_design_workbench import benchmarks, simulation
+from optics_design_workbench.jupyter_utils import Document
 
 
 def main():

@@ -5,19 +5,18 @@ spot size (reference: examples/3-parameter-sweeps/main.FCStd + sweep.ipynb).
 Shows both workflows:
   * scipy optimization through ParameterSweeper.optimize (the reference's
     path: one simulation per evaluation),
-  * the TPU-native batched sweep: every candidate radius compiled into one
-    stacked scene and traced by ONE Pallas sweep kernel (variant-major
-    grid, common random numbers across variants; XLA lax.map fallback).
+  * the batched sweep: every candidate radius compiled into one stacked
+    scene and traced by ONE jitted step (a lax.map over the variants).
 '''
 
 import numpy as np
 
-from optics_design_workbench_tpu.models import (Scene, PointSource,
-                                                OpticalGroup)
-from optics_design_workbench_tpu.geometry import surfaces as S
-from optics_design_workbench_tpu.geometry import transforms as T
-from optics_design_workbench_tpu.jupyter_utils import (ParameterSweeper,
-                                                       Parameter)
+from optics_design_workbench.models import (Scene, PointSource,
+                                            OpticalGroup)
+from optics_design_workbench.geometry import surfaces as S
+from optics_design_workbench.geometry import transforms as T
+from optics_design_workbench.jupyter_utils import (ParameterSweeper,
+                                                   Parameter)
 
 
 def buildScene(lensRadius=60., path='example3'):
@@ -65,7 +64,7 @@ def main():
                                   setter=setRadius, bounds=(40., 100.))),
       scene=holder['scene'])
 
-  # --- TPU-native batched sweep: all radii in ONE kernel dispatch ---
+  # --- batched sweep: all radii in ONE jitted step ---
   radii = np.linspace(45., 95., 11)
 
   def spotMetric(power, counts):

@@ -10,12 +10,12 @@ wavelength at sin(theta) = m * lambda / d; with 500 lines/mm (d = 2 um):
 
 import numpy as np
 
-from optics_design_workbench_tpu.models import (Scene, PointSource,
-                                                OpticalGroup)
-from optics_design_workbench_tpu.geometry import surfaces as S
-from optics_design_workbench_tpu.geometry import transforms as T
-from optics_design_workbench_tpu import simulation
-from optics_design_workbench_tpu.jupyter_utils import RawFolder
+from optics_design_workbench.models import (Scene, PointSource,
+                                            OpticalGroup)
+from optics_design_workbench.geometry import surfaces as S
+from optics_design_workbench.geometry import transforms as T
+from optics_design_workbench import simulation
+from optics_design_workbench.jupyter_utils import RawFolder
 
 LINES_PER_MM = 500.
 GRATING_Z = 100.

@@ -6,9 +6,9 @@ the headless analog of the reference GUI's 3D view (drawn RaySegment
 objects, generic_source.py:86-140, over the OCC-tessellated shapes).
 '''
 
-from optics_design_workbench_tpu import benchmarks, simulation
-from optics_design_workbench_tpu.geometry.tessellate import writeScenePLY
-from optics_design_workbench_tpu.simulation.draw import DrawnRays
+from optics_design_workbench import benchmarks, simulation
+from optics_design_workbench.geometry.tessellate import writeScenePLY
+from optics_design_workbench.simulation.draw import DrawnRays
 
 
 def main():

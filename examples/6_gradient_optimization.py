@@ -2,7 +2,7 @@
 Example 6 — gradient-based optical design: differentiate THROUGH the ray
 tracer. Where the reference explores parameters with derivative-free scipy
 searches (examples/3-parameter-sweeps, parameter_sweeper.py:700-918 —
-hundreds of full simulations), the TPU-native tracer is a closed JAX
+hundreds of full simulations), the tracer is a closed JAX
 program, so `jax.value_and_grad` of the spot-size merit backpropagates
 through every bounce and adam converges in tens of steps.
 
@@ -15,11 +15,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from optics_design_workbench_tpu.models import (Scene, PointSource,
-                                                OpticalGroup)
-from optics_design_workbench_tpu.geometry import surfaces as S
-from optics_design_workbench_tpu.geometry import transforms as T
-from optics_design_workbench_tpu.tracing import diff as D
+from optics_design_workbench.models import (Scene, PointSource,
+                                            OpticalGroup)
+from optics_design_workbench.geometry import surfaces as S
+from optics_design_workbench.geometry import transforms as T
+from optics_design_workbench.tracing import diff as D
 
 
 def main():

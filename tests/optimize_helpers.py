@@ -5,11 +5,11 @@ reload).'''
 
 import numpy as np
 
-from optics_design_workbench_tpu.models import (Scene, PointSource,
-                                                OpticalGroup)
-from optics_design_workbench_tpu.geometry import surfaces as S
-from optics_design_workbench_tpu.geometry import transforms as T
-from optics_design_workbench_tpu.jupyter_utils import Parameter
+from optics_design_workbench.models import (Scene, PointSource,
+                                            OpticalGroup)
+from optics_design_workbench.geometry import surfaces as S
+from optics_design_workbench.geometry import transforms as T
+from optics_design_workbench.jupyter_utils import Parameter
 
 
 def buildScene(path):

@@ -10,53 +10,23 @@ import jax
 import jax.numpy as jnp
 from functools import partial
 
-from optics_design_workbench_tpu.geometry import surfaces as S
-from optics_design_workbench_tpu.geometry import transforms as T
-from optics_design_workbench_tpu import tracing as TR
-from optics_design_workbench_tpu.tracing.tracer import bounceOne, VACUUM_MEDIUM
-from optics_design_workbench_tpu.tracing.batch_tracer import bounceBatch
+from optics_design_workbench.geometry import surfaces as S
+from optics_design_workbench.geometry import transforms as T
+from optics_design_workbench import tracing as TR
+from optics_design_workbench.tracing.tracer import bounceOne, VACUUM_MEDIUM
+from optics_design_workbench.tracing.batch_tracer import bounceBatch
 
 
 def _mixedScene():
-  surfs = [
-      S.sphere(T.translation(0, 0, 60), elem=0, radius=30.,
-               zRange=(-30., -20.), orient=+1),
-      S.plane(T.translation(0, 0, 45), elem=0, radius=25., orient=+1),
-      S.cylinder(T.translation(0, 0, 40), elem=0, radius=25.,
-                 zRange=(-5, 5), orient=+1),
-      S.plane(T.compose(T.translation(0, 0, 100),
-                        T.rotation((0, 1, 0), 30)), elem=1, radius=80.),
-      S.plane(T.compose(T.translation(0, 0, 120),
-                        T.rotation((1, 0, 0), 10)), elem=2, radius=90.,
-              orient=-1),
-      S.asphere(T.translation(0, 0, 140), elem=3, curvature=0.01,
-                conic=-1., rMax=60.),
-      S.plane(T.translation(0, 0, 180), elem=4, halfExtents=(200., 200.)),
-  ]
-  elems = [
-      TR.element('Lens', refractiveIndex=1.7, absorptionLength=40.),
-      TR.element('Mirror', reflectivity=0.9),
-      TR.element('Grating', gratingType='Reflection',
-                 gratingLinesPerMillimeter=600.,
-                 gratingLinesOrientation=(1, 0, 0)),
-      TR.element('Vacuum', recordHits=True),
-      TR.element('Absorber', recordHits=True),
-  ]
-  return dict(surfaces=S.buildSurfaceTable(surfs),
-              elements=TR.buildElementTable(elems),
-              powerTol=1e-6)
+  from optics_design_workbench import benchmarks
+  return benchmarks.buildMixedInteractionScene()
 
 
 def test_batch_matches_per_ray_kernel():
   scene = _mixedScene()
   N = 512
-  key = jax.random.PRNGKey(7)
-  k1, k2 = jax.random.split(key)
-  ang = jax.random.uniform(k1, (N,), minval=-0.4, maxval=0.4)
-  phi = jax.random.uniform(k2, (N,), minval=0, maxval=2 * np.pi)
-  d = jnp.stack([jnp.sin(ang) * jnp.cos(phi), jnp.sin(ang) * jnp.sin(phi),
-                 jnp.cos(ang)], axis=-1)
-  o = jnp.zeros((N, 3), jnp.float32)
+  from optics_design_workbench import benchmarks
+  o, d = benchmarks.mixedInteractionRays(jax.random.PRNGKey(7), N)
   state = (o, d, jnp.ones((N,)), jnp.full((N,), 550.),
            jnp.full((N,), VACUUM_MEDIUM, jnp.int32),
            jnp.zeros((N,), jnp.int32), jnp.ones((N,), bool))
@@ -168,13 +138,14 @@ def test_batch_matches_per_ray_on_quadric_prim_scene():
 
 def test_fused_step_ray_chunking_matches_unchunked():
   '''makeFusedStep's memory guard (lax.scan over ray chunks when
-  S * raysPerStep exceeds chunkLimit — the (S, N) distance matrix OOMs
-  HBM for big meshes otherwise) must be bit-identical to the unchunked
+  S * raysPerStep * BYTES_PER_SURFACE_RAY exceeds memoryBudgetBytes — the
+  (S, N) distance matrix runs out of device memory for big meshes
+  otherwise) must be bit-identical to the unchunked
   step: same rays, same scatterless physics, chunking only reshapes the
   batch axis.'''
   import jax
-  from optics_design_workbench_tpu import benchmarks
-  from optics_design_workbench_tpu.tracing import fused
+  from optics_design_workbench import benchmarks
+  from optics_design_workbench.tracing import fused
 
   scene = benchmarks.buildLensMirrorScene()
   device, info = scene.compile()
@@ -188,9 +159,10 @@ def test_fused_step_ray_chunking_matches_unchunked():
             distTol=1e-4)
   stepA = fused.makeFusedStep(device, src.deviceGenerator(), hs, **kw)
   hA, cA = stepA(key, fused.initHistograms(hs))
-  # tiny chunkLimit forces 8 chunks on this 6-surface scene
-  stepB = fused.makeFusedStep(device, src.deviceGenerator(), hs, **kw,
-                              chunkLimit=6 * (N // 8))
+  # a tiny budget forces 8 chunks on this 5-surface scene
+  stepB = fused.makeFusedStep(
+      device, src.deviceGenerator(), hs, **kw,
+      memoryBudgetBytes=6 * (N // 8) * fused.BYTES_PER_SURFACE_RAY)
   hB, cB = stepB(key, fused.initHistograms(hs))
   assert int(cB['hits']) == int(cA['hits'])
   assert int(cB['segments']) == int(cA['segments'])
@@ -198,3 +170,22 @@ def test_fused_step_ray_chunking_matches_unchunked():
                                 np.asarray(hA['counts']))
   np.testing.assert_allclose(np.asarray(hB['power']),
                              np.asarray(hA['power']), rtol=1e-6, atol=1e-7)
+
+
+def test_trace_reference_matches_trace():
+  '''tracing.traceReference (the per-ray oracle, full f32 rotations)
+  against tracing.trace (the batch tracer) over whole traces of the mixed
+  scene: the agreement that the GPU smoke run checks at 65,536 rays.'''
+  from optics_design_workbench import benchmarks
+  scene = _mixedScene()
+  N = 1024
+  o, d = benchmarks.mixedInteractionRays(jax.random.PRNGKey(3), N)
+  args = (scene, o, d, jnp.ones((N,)), jnp.full((N,), 550.))
+  kw = dict(maxIntersections=6, maxRayLength=1000., distTol=1e-4)
+  ref = TR.traceReference(*args, **kw)
+  _state, rec = TR.trace(*args, recordSegments=False, **kw)
+  agree = benchmarks.oracleAgreement(ref, rec)
+  assert agree['sameElementFraction'] >= 0.999, agree
+  assert agree['maxPointDistance'] <= 1e-3, agree
+  assert agree['maxPowerRelDiff'] <= 1e-5, agree
+  assert (np.asarray(ref["hitElem"]) >= 0).sum() >= 3 * N   # rays bounce

@@ -11,8 +11,8 @@ import zipfile
 import numpy as np
 import pytest
 
-from optics_design_workbench_tpu.geometry import brep as B
-from optics_design_workbench_tpu.geometry import surfaces as S
+from optics_design_workbench.geometry import brep as B
+from optics_design_workbench.geometry import surfaces as S
 
 _EX2 = '/root/reference/examples/2-lens-and-mirror/main.FCStd'
 _LAMBERT = '/root/reference/test/50-old-tests/lambert-source.FCStd'
@@ -190,7 +190,7 @@ def test_slot_trim_device_intersections():
   says.'''
   import jax
   import jax.numpy as jnp
-  from optics_design_workbench_tpu.geometry import intersect as I
+  from optics_design_workbench.geometry import intersect as I
   surfs, _notes = B.brepToSurfaces(_blob(_EX2, 'Cut.Shape.brp'), elem=0)
   table = S.buildSurfaceTable([dict(s) for s in surfs])
   assert 'trimPrims' in table

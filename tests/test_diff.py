@@ -11,12 +11,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from optics_design_workbench_tpu import benchmarks
-from optics_design_workbench_tpu.models import Scene, PointSource, OpticalGroup
-from optics_design_workbench_tpu.geometry import surfaces as S
-from optics_design_workbench_tpu.geometry import transforms as T
-from optics_design_workbench_tpu.tracing import diff as D
-from optics_design_workbench_tpu.tracing.tracer import trace
+from optics_design_workbench import benchmarks
+from optics_design_workbench.models import Scene, PointSource, OpticalGroup
+from optics_design_workbench.geometry import surfaces as S
+from optics_design_workbench.geometry import transforms as T
+from optics_design_workbench.tracing import diff as D
+from optics_design_workbench.tracing.tracer import trace
 
 
 @pytest.fixture(scope='module')
@@ -165,7 +165,10 @@ class TestGroupSpecs:
                         batch, detectorElem=2, maxIntersections=6)
     v, g = lg(jnp.zeros(1))
     assert np.isfinite(float(v)) and np.isfinite(float(g[0]))
-    eps = 1e-4
+    # the ~25 mm^2 loss is float32 (ulp ~2e-6): at eps = 1e-4 rounding
+    # alone moves the central difference by ~1e-2, the size of the slope
+    # itself; at 1e-3 it stays ~1e-3 while the O(eps^2) term is negligible
+    eps = 1e-3
     fd = (float(lg(jnp.array([eps]))[0])
           - float(lg(jnp.array([-eps]))[0])) / (2 * eps)
     assert abs(fd - float(g[0])) / max(abs(fd), 1e-9) < 2e-2, (fd,

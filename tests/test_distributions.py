@@ -9,10 +9,10 @@ import numpy as np
 import pytest
 import jax
 
-from optics_design_workbench_tpu import distributions
-from optics_design_workbench_tpu.distributions import (
-    VectorRandomVariable, ScalarRandomVariable, SampledVectorRandomVariable,
-    buildDeviceTables, deviceDraw)
+from optics_design_workbench import distributions
+from optics_design_workbench.distributions import (
+                                                   VectorRandomVariable, ScalarRandomVariable, SampledVectorRandomVariable,
+                                                   buildDeviceTables, deviceDraw)
 
 
 def _rmsHistError1D(samples, pdf, domain, bins=50):
@@ -243,8 +243,8 @@ def test_constants_recompile():
 
 
 def test_points_by_density():
-  from optics_design_workbench_tpu.distributions.points_by_density import (
-      generatePointsWithGivenDensity1D)
+  from optics_design_workbench.distributions.points_by_density import (
+                                                                       generatePointsWithGivenDensity1D)
   x = np.linspace(0, 1, 1001)
   y = 1 + 10 * x
   pts = generatePointsWithGivenDensity1D((x, y), N=101)

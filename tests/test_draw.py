@@ -10,13 +10,13 @@ import os
 import numpy as np
 import pytest
 
-from optics_design_workbench_tpu.models import (Scene, PointSource,
-                                                OpticalGroup)
-from optics_design_workbench_tpu.geometry import surfaces as S
-from optics_design_workbench_tpu.geometry import transforms as T
-from optics_design_workbench_tpu import simulation
-from optics_design_workbench_tpu.simulation.draw import (DrawnRays,
-                                                         sceneDrawParams)
+from optics_design_workbench.models import (Scene, PointSource,
+                                            OpticalGroup)
+from optics_design_workbench.geometry import surfaces as S
+from optics_design_workbench.geometry import transforms as T
+from optics_design_workbench import simulation
+from optics_design_workbench.simulation.draw import (DrawnRays,
+                                                     sceneDrawParams)
 
 
 @pytest.fixture
@@ -156,13 +156,13 @@ class TestFromStoredRays:
     '''RecordRays run -> loadRays -> DrawnRays.fromRays -> plotScene: the
     stored-polyline visualization path (reference users inspect stored
     rays in the FreeCAD view; here via matplotlib / PLY).'''
-    from optics_design_workbench_tpu.jupyter_utils import (DrawnRays as DR,
-                                                           plotScene,
-                                                           rawFolders)
+    from optics_design_workbench.jupyter_utils import (DrawnRays as DR,
+                                                       plotScene,
+                                                       rawFolders)
     for src in scene.lightSources():
       src.RecordRays = True
     runPath = simulation.runSimulation(scene, 'singletrue', seed=2)
-    from optics_design_workbench_tpu.jupyter_utils.document import RawFolder
+    from optics_design_workbench.jupyter_utils.document import RawFolder
     rays = RawFolder(runPath).loadRays()
     assert len(rays) == 64
     drawn = DR.fromRays(rays, sourceColor=(0., 1., 0.))

@@ -12,9 +12,9 @@ import pytest
 
 REFERENCE_FCSTD = '/root/reference/examples/1-source-and-detector/main.FCStd'
 
-from optics_design_workbench_tpu.models.fcstd_ingest import (loadFCStd,
-                                                             parseDocumentXml)
-from optics_design_workbench_tpu import simulation
+from optics_design_workbench.models.fcstd_ingest import (loadFCStd,
+                                                         parseDocumentXml)
+from optics_design_workbench import simulation
 
 
 needsReference = pytest.mark.skipif(not os.path.exists(REFERENCE_FCSTD),
@@ -60,7 +60,7 @@ def test_ingested_scene_simulates(tmp_path):
       True
   scene.getObject('OpticalSimulationSettings').RaysPerIteration = 3000
   runPath = simulation.runSimulation(scene, 'singletrue', seed=3)
-  from optics_design_workbench_tpu.jupyter_utils import RawFolder
+  from optics_design_workbench.jupyter_utils import RawFolder
   hits = RawFolder(runPath).loadHits('OpticalAbsorberGroup')
   # box absorber 10x10 at z=50, gaussian theta sigma~0.07: most rays hit
   assert len(hits) > 1000
@@ -88,7 +88,7 @@ def test_example2_loads_and_traces(tmp_path):
   assert 'OpticalAbsorberGroup' in byLabel
   # the slotted parabolic mirror must carry an analytic paraboloid
   # (ASPHERE k=-1) with a bitmap trim for the slot, not a mesh
-  from optics_design_workbench_tpu.geometry import surfaces as S
+  from optics_design_workbench.geometry import surfaces as S
   mirrorKinds = [s['kind'] for s in byLabel['OpticalMirrorGroup'].surfaces]
   assert S.ASPHERE in mirrorKinds
   asph = [s for s in byLabel['OpticalMirrorGroup'].surfaces
@@ -101,10 +101,10 @@ def test_example2_loads_and_traces(tmp_path):
   # the full lens -> slotted mirror -> mirror -> detector train)
   settings = scene.getObject('OpticalSimulationSettings')
   settings.RaysPerIteration = 4000
-  settings.MaxIntersections = 8    # CPU-suite tractability (TPU uses 100)
+  settings.MaxIntersections = 8    # CPU-suite tractability (default 100)
   runPath = simulation.runSimulation(scene, 'singletrue', seed=5,
                                      store=True)
-  from optics_design_workbench_tpu.jupyter_utils import RawFolder
+  from optics_design_workbench.jupyter_utils import RawFolder
   hits = RawFolder(runPath).loadHits('*')
   assert len(hits) > 30, 'example 2 scene produced almost no detector hits'
 
@@ -116,7 +116,7 @@ def test_all_placements_and_paths_matches_reference_matrices():
   must resolve to exactly these 8 global matrices (reference:
   z-freecad-placements.py:42-73; common.py:36-109).'''
   import zipfile
-  from optics_design_workbench_tpu.models import fcstd_ingest as FI
+  from optics_design_workbench.models import fcstd_ingest as FI
   path = '/root/reference/test/22-global-placement/main.FCStd'
   if not os.path.exists(path):
     pytest.skip('reference FCStd not available')
@@ -143,7 +143,7 @@ def test_all_placements_and_paths_matches_reference_matrices():
 def test_active_surfaces_subface_selection(tmp_path):
   '''ActiveSurfaces LinkSubList with picked FaceN entries resolves to
   (label, [faceIndices]) (reference: surface_source.py:437-457).'''
-  from optics_design_workbench_tpu.models.fcstd_ingest import _parseProperty
+  from optics_design_workbench.models.fcstd_ingest import _parseProperty
   import xml.etree.ElementTree as ET
   xml = ET.fromstring('''
     <Property name="ActiveSurfaces" type="App::PropertyLinkSubList">
@@ -188,7 +188,7 @@ def test_nested_structure_external_documents(tmp_path):
   settings.EnableStoreSingleShotData = True
   settings.RaysPerIteration = 10000
   runPath = simulation.runSimulation(scene, 'singletrue', seed=7)
-  from optics_design_workbench_tpu.jupyter_utils import RawFolder
+  from optics_design_workbench.jupyter_utils import RawFolder
   hits = RawFolder(runPath).loadHits('*')
   assert len(hits) > 90, 'nested external-document scene traced no hits'
 

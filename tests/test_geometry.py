@@ -8,9 +8,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from optics_design_workbench_tpu.geometry import transforms as T
-from optics_design_workbench_tpu.geometry import surfaces as S
-from optics_design_workbench_tpu.geometry import intersect as I
+from optics_design_workbench.geometry import transforms as T
+from optics_design_workbench.geometry import surfaces as S
+from optics_design_workbench.geometry import intersect as I
 
 
 def ray(o, d):

@@ -12,14 +12,14 @@ import pytest
 import matplotlib
 matplotlib.use('Agg')
 
-from optics_design_workbench_tpu.models import (Scene, PointSource,
-                                                OpticalGroup)
-from optics_design_workbench_tpu.geometry import surfaces as S
-from optics_design_workbench_tpu.geometry import transforms as T
-from optics_design_workbench_tpu import simulation
-from optics_design_workbench_tpu.jupyter_utils import (
-    Document, Hits, Histogram, ParameterSweeper, Parameter, rawFolders,
-    latestRawFolder, saveScene, loadScene, RawFolderRange)
+from optics_design_workbench.models import (Scene, PointSource,
+                                            OpticalGroup)
+from optics_design_workbench.geometry import surfaces as S
+from optics_design_workbench.geometry import transforms as T
+from optics_design_workbench import simulation
+from optics_design_workbench.jupyter_utils import (
+                                                   Document, Hits, Histogram, ParameterSweeper, Parameter, rawFolders,
+                                                   latestRawFolder, saveScene, loadScene, RawFolderRange)
 
 
 def buildScene(tmp, lensRadius=60.):
@@ -143,7 +143,7 @@ class TestHitsAnalysis:
     src.Fans = 2
     src.RaysPerFan = 41
     runPath = simulation.runSimulation(scene, 'fans')
-    from optics_design_workbench_tpu.jupyter_utils import RawFolder
+    from optics_design_workbench.jupyter_utils import RawFolder
     return RawFolder(runPath)
 
   def test_plane_detection(self, fanRun):

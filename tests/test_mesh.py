@@ -7,9 +7,9 @@ import zipfile
 import numpy as np
 import pytest
 
-from optics_design_workbench_tpu.geometry import mesh as M
-from optics_design_workbench_tpu.geometry import surfaces as S
-from optics_design_workbench_tpu.geometry import transforms as T
+from optics_design_workbench.geometry import mesh as M
+from optics_design_workbench.geometry import surfaces as S
+from optics_design_workbench.geometry import transforms as T
 
 
 def _quadVerts(z=0., half=10.):
@@ -111,10 +111,10 @@ def test_brep_without_triangulation_raises():
 def test_trace_against_mesh_detector(tmp_path):
   '''A mesh quad at z=50 must catch the same rays as an analytic plane.'''
   import glob
-  from optics_design_workbench_tpu.models import (Scene, PointSource,
-                                                  OpticalGroup)
-  from optics_design_workbench_tpu import simulation
-  from optics_design_workbench_tpu.simulation import results_store as RS
+  from optics_design_workbench.models import (Scene, PointSource,
+                                              OpticalGroup)
+  from optics_design_workbench import simulation
+  from optics_design_workbench.simulation import results_store as RS
 
   def run(useMesh):
     scene = Scene(label=f'meshdet{int(useMesh)}',
@@ -188,7 +188,7 @@ def test_fcstd_ingest_brep_mesh(tmp_path):
   with zipfile.ZipFile(p, 'w') as z:
     z.writestr('Document.xml', docXml)
     z.writestr('CutShape.brp', BREP_V2)
-  from optics_design_workbench_tpu.models import fcstd_ingest
+  from optics_design_workbench.models import fcstd_ingest
   scene = fcstd_ingest.loadFCStd(str(p), skipUnsupported=True)
   groups = scene.opticalObjects()
   assert len(groups) == 1

@@ -21,14 +21,14 @@ import re
 import numpy as np
 import pytest
 
-from optics_design_workbench_tpu.models import (Scene, PointSource,
-                                                OpticalGroup,
-                                                SimulationSettings)
-from optics_design_workbench_tpu.geometry import surfaces as S
-from optics_design_workbench_tpu.geometry import transforms as T
-from optics_design_workbench_tpu import simulation
-from optics_design_workbench_tpu.parallel import runMultiprocess
-from optics_design_workbench_tpu.simulation import results_store as RS
+from optics_design_workbench.models import (Scene, PointSource,
+                                            OpticalGroup,
+                                            SimulationSettings)
+from optics_design_workbench.geometry import surfaces as S
+from optics_design_workbench.geometry import transforms as T
+from optics_design_workbench import simulation
+from optics_design_workbench.parallel import runMultiprocess
+from optics_design_workbench.simulation import results_store as RS
 
 
 def makeScene(path, **srcProps):
@@ -94,7 +94,7 @@ def test_continuous_two_workers_shared_folder(tmp_path):
   assert len(hits['points']) >= 8000
   assert np.allclose(hits['points'][:, 2], 100., atol=1e-3)
   # master wrote progress snapshots and the lifecycle flags are cleared
-  from optics_design_workbench_tpu.simulation.lifecycle import Lifecycle
+  from optics_design_workbench.simulation.lifecycle import Lifecycle
   lc = Lifecycle(RS.getResultsFolderPath(scene.path))
   assert not lc.isRunning(attemptCleanup=False)
 
@@ -177,9 +177,9 @@ def test_scheduled_worker_end_of_life(tmp_path):
   respawned past their lifetime (reference: 10h+2h-jitter worker
   end-of-life, worker_process.py:44-45) and the run still completes with
   hits from both incarnations.'''
-  from optics_design_workbench_tpu.parallel.multiprocess import \
+  from optics_design_workbench.parallel.multiprocess import \
       runMultiprocess
-  from optics_design_workbench_tpu.utils import io as uio
+  from optics_design_workbench.utils import io as uio
   logPath = uio.setLogfile(str(tmp_path / 'master.log'))
   scene = makeScene(str(tmp_path / 'eol'))
   # pace the run so the tracing work (the EOL clock starts at a worker's
@@ -191,7 +191,7 @@ def test_scheduled_worker_end_of_life(tmp_path):
   runFolder = runMultiprocess(scene, 'true', workerCount=2, forceCpu=True,
                               timeoutSeconds=900,
                               workerMaxLifetimeSeconds=5)
-  from optics_design_workbench_tpu.jupyter_utils.document import RawFolder
+  from optics_design_workbench.jupyter_utils.document import RawFolder
   raw = RawFolder(runFolder)
   prog = raw.progress()
   assert prog['totalTracedRays'] >= 3e5
@@ -242,3 +242,48 @@ def test_histogram_recording_two_workers_matches_single_process(tmp_path):
   # same physical distribution: centroid and spread agree within MC error
   assert abs(cyM - cyS) < 2. and abs(cxM - cxS) < 2.
   assert abs(spM - spS) < 0.1 * spS
+
+
+def test_worker_environments_one_card_each():
+  from optics_design_workbench.parallel.multiprocess import \
+      workerEnvironments
+  envs = workerEnvironments(3, False, dict(FOO='1'),
+                            gpuIds=['0', '1', '2', '3'])
+  assert [e['CUDA_VISIBLE_DEVICES'] for e in envs] == ['0', '1', '2']
+  assert all(e['FOO'] == '1' and 'JAX_PLATFORMS' not in e for e in envs)
+  # ids come from the parent's own CUDA_VISIBLE_DEVICES list
+  envs = workerEnvironments(2, False, {}, gpuIds=['5', '7'])
+  assert [e['CUDA_VISIBLE_DEVICES'] for e in envs] == ['5', '7']
+
+
+def test_more_workers_than_cards_refused(tmp_path):
+  from optics_design_workbench.parallel.multiprocess import \
+      workerEnvironments
+  with pytest.raises(ValueError, match='cannot share a card'):
+    workerEnvironments(3, False, {}, gpuIds=['0', '1'])
+  # forceCpu keeps every worker on the CPU, however many there are
+  envs = workerEnvironments(3, True, {}, gpuIds=['0', '1'])
+  assert all(e['JAX_PLATFORMS'] == 'cpu'
+             and 'CUDA_VISIBLE_DEVICES' not in e for e in envs)
+
+
+def test_refusal_happens_before_any_worker_starts(tmp_path, monkeypatch):
+  from optics_design_workbench.parallel import multiprocess as MP
+  monkeypatch.setattr(MP, 'visibleGpuIds', lambda: ['0'])
+  scene = makeScene(str(tmp_path / 'refuse'))
+  with pytest.raises(ValueError, match='1 GPU'):
+    runMultiprocess(scene, 'true', workerCount=2)
+  assert not glob.glob(str(tmp_path / 'refuse.OpticsDesign' / 'raw' / '*'))
+
+
+@pytest.mark.parametrize('env,expected', [
+    (dict(JAX_PLATFORMS='cpu', CUDA_VISIBLE_DEVICES='0,1'), []),
+    (dict(JAX_PLATFORMS='cuda,cpu', CUDA_VISIBLE_DEVICES='2,3'),
+     ['2', '3']),
+    (dict(JAX_PLATFORMS='cuda', CUDA_VISIBLE_DEVICES='-1'), []),
+])
+def test_visible_gpu_ids(monkeypatch, env, expected):
+  from optics_design_workbench.parallel.multiprocess import visibleGpuIds
+  for k, v in env.items():
+    monkeypatch.setenv(k, v)
+  assert visibleGpuIds() == expected

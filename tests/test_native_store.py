@@ -6,7 +6,7 @@ utils/native_store.py).
 import numpy as np
 import pytest
 
-from optics_design_workbench_tpu.utils import native_store
+from optics_design_workbench.utils import native_store
 
 
 COLUMNS = dict(
@@ -72,7 +72,7 @@ def test_many_async_writes_drain(tmp_path):
 def test_store_format_integration(tmp_path):
   '''SimulationResults with the odwc format writes native files the loaders
   read back.'''
-  from optics_design_workbench_tpu.simulation import results_store as RS
+  from optics_design_workbench.simulation import results_store as RS
   results = RS.SimulationResults(
       'true', str(tmp_path / 'x.OpticsDesign'), 'raw/simulation-run-000000',
       fileFormat='odwc')

@@ -9,7 +9,7 @@ import sys
 import numpy as np
 import pytest
 
-from optics_design_workbench_tpu.jupyter_utils import ParameterSweeper
+from optics_design_workbench.jupyter_utils import ParameterSweeper
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import optimize_helpers as OH
@@ -46,7 +46,7 @@ def test_unpicklable_falls_back_sequential(tmp_path):
   local = []   # closure makes the factory unpicklable
 
   def factory(sc):
-    from optics_design_workbench_tpu.jupyter_utils import Parameter
+    from optics_design_workbench.jupyter_utils import Parameter
     local.append(sc)
     return dict(x=Parameter(getter=lambda: OH._getX(sc),
                             setter=lambda v: OH._setX(sc, v),

@@ -8,9 +8,9 @@ import numpy as np
 import jax
 import pytest
 
-from optics_design_workbench_tpu import benchmarks
-from optics_design_workbench_tpu.parallel import makeMesh
-from optics_design_workbench_tpu.tracing import fused
+from optics_design_workbench import benchmarks
+from optics_design_workbench.parallel import makeMesh
+from optics_design_workbench.tracing import fused
 
 
 def test_sharded_step_matches_single_device():
@@ -27,8 +27,7 @@ def test_sharded_step_matches_single_device():
 
   # single-device step on the same scene: statistics agree within MC error
   stepSingle, hist1, _ = benchmarks.makeBenchStep(
-      raysPerStep=N, maxIntersections=4, mesh=None, bins=(32, 32),
-      usePallas=False)
+      raysPerStep=N, maxIntersections=4, mesh=None, bins=(32, 32))
   hist1, counters1 = stepSingle(jax.random.PRNGKey(0), hist1)
   hits1 = int(counters1['hits'])
   assert abs(hitsS - hits1) < 0.05 * N
@@ -83,15 +82,15 @@ def test_fans_shard_with_padding_matches_single_device(tmp_path):
   '''Deterministic fan batches whose ray count does not divide the mesh
   (4 fans x 33 rays = 132, 132 % 8 = 4) are padded with throwaway rays and
   sharded statically over all 8 devices; the recorded hit set must equal
-  the unsharded run exactly (the TPU analog of the reference's
+  the unsharded run exactly (the analog of the reference's
   initial-conditions queue, results_store.py:679-738).'''
   import glob
-  from optics_design_workbench_tpu.models import (Scene, PointSource,
-                                                  OpticalGroup)
-  from optics_design_workbench_tpu.geometry import surfaces as S
-  from optics_design_workbench_tpu.geometry import transforms as T
-  from optics_design_workbench_tpu import simulation
-  from optics_design_workbench_tpu.simulation import results_store as RS
+  from optics_design_workbench.models import (Scene, PointSource,
+                                              OpticalGroup)
+  from optics_design_workbench.geometry import surfaces as S
+  from optics_design_workbench.geometry import transforms as T
+  from optics_design_workbench import simulation
+  from optics_design_workbench.simulation import results_store as RS
 
   def makeScene(path):
     scene = Scene(label='fanshard', path=path)
@@ -148,10 +147,10 @@ jax.config.update('jax_platforms', 'cpu')
 jax.config.update('jax_cpu_collectives_implementation', 'gloo')
 
 sys.path.insert(0, sys.argv[3])
-from optics_design_workbench_tpu.parallel import mesh as M
-from optics_design_workbench_tpu.parallel import sharded
-from optics_design_workbench_tpu import benchmarks
-from optics_design_workbench_tpu.tracing import fused
+from optics_design_workbench.parallel import mesh as M
+from optics_design_workbench.parallel import sharded
+from optics_design_workbench import benchmarks
+from optics_design_workbench.tracing import fused
 
 M.initDistributed(coordinatorAddress=sys.argv[1],
                   numProcesses=2, processId=int(sys.argv[2]))
@@ -219,7 +218,7 @@ def test_two_process_dcn_matches_single_process(tmp_path):
   assert outs[0] == outs[1], outs
 
   # single-process 8-device mesh, same key -> identical shard streams
-  from optics_design_workbench_tpu.parallel import sharded
+  from optics_design_workbench.parallel import sharded
   mesh = makeMesh(nDevices=8)
   scene = benchmarks.buildLensMirrorScene(tmpdir=str(tmp_path / 'solo'))
   device, info = scene.compile()
@@ -238,87 +237,20 @@ def test_two_process_dcn_matches_single_process(tmp_path):
   assert float(np.asarray(h['counts']).sum()) == outs[0]['checksum']
 
 
-def test_sharded_raw_step_matches_per_shard_kernels():
-  '''makeShardedPallasRawStep (interpret mode on the CPU mesh) must produce
-  exactly the records of running the per-shard raw kernel with the same
-  folded keys and concatenating — record sharding on the ray axis, psum'd
-  counters (the multi-chip stored-run fast path, runner.py raw branch).'''
-  from optics_design_workbench_tpu.parallel import makeShardedPallasRawStep
-  from optics_design_workbench_tpu.ops import pallas_trace
-  from optics_design_workbench_tpu.tracing import fused as fusedMod
-
-  mesh = makeMesh(nDevices=8)
-  scene = benchmarks.buildLensMirrorScene(tmpdir=None)
-  device, info = scene.compile()
-  device['powerTol'] = 1e-6
-  src = scene.lightSources()[0]
-  histSpec = fusedMod.makeHistogramSpec(device, info,
-                                        bounds=(-60., 60., -60., 60.),
-                                        bins=(32, 32))
-  N = 8 * 2048
-  kw = dict(maxIntersections=4, maxRayLength=1e6, distTol=1e-4)
-  gen = src.deviceColumnsGenerator()
-  stepSharded = makeShardedPallasRawStep(mesh, device, histSpec, gen,
-                                         raysPerStep=N, interpret=True,
-                                         **kw)
-  key = jax.random.PRNGKey(3)
-  records, counters = stepSharded(key)
-  assert records['hitElem'].shape[1] == N
-
-  single = pallas_trace.makePallasRawStep(device, histSpec, gen,
-                                          raysPerStep=N // 8,
-                                          interpret=True, **kw)
-  keys = jax.random.split(key, 8)
-  parts = [single(jax.random.fold_in(keys[i], i)) for i in range(8)]
-  expected = {k: np.concatenate([np.asarray(p[0][k]) for p in parts],
-                                axis=1)
-              for k in parts[0][0]}
-  for k in expected:
-    np.testing.assert_array_equal(np.asarray(records[k]), expected[k],
-                                  err_msg=k)
-  assert int(counters['segments']) == sum(int(p[1]['segments'])
-                                          for p in parts)
-  assert int(counters['hits']) == sum(int(p[1]['hits']) for p in parts)
-  assert int(counters['hits']) > 0.9 * N
-
-
-def test_sharded_pallas_hist_step_interpret_matches_per_shard():
-  '''makeShardedPallasStep (interpret mode, CPU mesh): the sharded
-  histogram-kernel composition — per-shard folded keys, psum'd histogram
-  deltas — must equal running the per-shard kernel serially and summing
-  (previously this composition only ever executed on TPU hardware).'''
-  from optics_design_workbench_tpu.parallel import (makeShardedPallasStep,
-                                                    makeMesh)
-  from optics_design_workbench_tpu.ops import pallas_trace
-  from optics_design_workbench_tpu.tracing import fused as fusedMod
-
-  mesh = makeMesh(nDevices=8)
-  scene = benchmarks.buildLensMirrorScene(tmpdir=None)
-  device, info = scene.compile()
-  device['powerTol'] = 1e-6
-  src = scene.lightSources()[0]
-  histSpec = fusedMod.makeHistogramSpec(device, info,
-                                        bounds=(-60., 60., -60., 60.),
-                                        bins=(32, 128))
-  N = 8 * 2048
-  kw = dict(maxIntersections=4, maxRayLength=1e6, distTol=1e-4)
-  gen = src.deviceColumnsGenerator()
-  step = makeShardedPallasStep(mesh, device, histSpec, gen, raysPerStep=N,
-                               interpret=True, **kw)
-  hist0 = fusedMod.initHistograms(histSpec)
-  key = jax.random.PRNGKey(17)
+def test_sharded_step_matches_summed_per_shard_steps():
+  '''The sharded fused step (the path of WorkerProcessCount > 1) against
+  its per-shard steps run one after another and summed — the comparison
+  `chip_smoke.py --four` makes on four GPUs. Counts are integers, so they
+  agree exactly; powers are float32 sums in another order.'''
+  mesh = makeMesh(nDevices=4)
+  N = 4 * 1024
+  step, hist0, meta = benchmarks.makeBenchStep(
+      raysPerStep=N, maxIntersections=6, bins=(32, 32), mesh=mesh)
+  key = jax.random.PRNGKey(21)
   hist, counters = step(key, hist0)
-
-  single = pallas_trace.makePallasTraceStep(device, histSpec, gen,
-                                            raysPerStep=N // 8,
-                                            interpret=True, **kw)
-  keys = jax.random.split(key, 8)
-  expCounts = np.zeros_like(np.asarray(hist['counts']))
-  expHits = 0
-  for i in range(8):
-    hi, ci = single(jax.random.fold_in(keys[i], i),
-                    fusedMod.initHistograms(histSpec))
-    expCounts = expCounts + np.asarray(hi['counts'])
-    expHits += int(ci['hits'])
-  np.testing.assert_array_equal(np.asarray(hist['counts']), expCounts)
-  assert int(counters['hits']) == expHits > 0.9 * N
+  ref, refCounters = benchmarks.perShardReference(meta, key, 4, N, 6)
+  assert int(counters['hits']) == refCounters['hits'] > 0.9 * N
+  assert int(counters['segments']) == refCounters['segments']
+  np.testing.assert_array_equal(np.asarray(hist['counts']), ref['counts'])
+  np.testing.assert_allclose(np.asarray(hist['power']), ref['power'],
+                             rtol=1e-5, atol=1e-6 * ref['power'].max())

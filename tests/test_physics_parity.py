@@ -12,12 +12,12 @@ import numpy as np
 import pytest
 import sympy as sy
 
-from optics_design_workbench_tpu.models import (Scene, PointSource,
-                                                OpticalGroup)
-from optics_design_workbench_tpu.geometry import surfaces as S
-from optics_design_workbench_tpu.geometry import transforms as T
-from optics_design_workbench_tpu import simulation
-from optics_design_workbench_tpu.jupyter_utils import RawFolder
+from optics_design_workbench.models import (Scene, PointSource,
+                                            OpticalGroup)
+from optics_design_workbench.geometry import surfaces as S
+from optics_design_workbench.geometry import transforms as T
+from optics_design_workbench import simulation
+from optics_design_workbench.jupyter_utils import RawFolder
 
 
 def detectorScene(tmp, detDistance=100., **sourceKwargs):

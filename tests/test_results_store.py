@@ -12,8 +12,8 @@ import time
 import numpy as np
 import pytest
 
-from optics_design_workbench_tpu.simulation import results_store
-from optics_design_workbench_tpu.utils import native_store
+from optics_design_workbench.simulation import results_store
+from optics_design_workbench.utils import native_store
 
 
 def _makeStore(tmp_path, **kw):
@@ -154,7 +154,7 @@ def test_timeout_never_fires_outside_region():
   after the with-block, no KeyboardInterrupt may hit unrelated code
   (round-1: a late SIGALRM aborted pytest from inside an XLA GC callback).'''
   import signal
-  from optics_design_workbench_tpu.distributions.random_variables import \
+  from optics_design_workbench.distributions.random_variables import \
       _Timeout
 
   with pytest.raises(RuntimeError, match='time is up'):
@@ -181,7 +181,7 @@ def test_timeout_budget_is_cpu_time_not_wall_clock():
   for machine load starving the process) must not expire the budget — the
   round-2 flake was the analytic sympy budget expiring under load and
   silently flipping compile mode to numeric.'''
-  from optics_design_workbench_tpu.distributions.random_variables import \
+  from optics_design_workbench.distributions.random_variables import \
       _Timeout
 
   with _Timeout(time.thread_time() + 1.5):
@@ -258,7 +258,7 @@ def test_robust_unpickler_tolerates_numpy_module_rename(tmp_path):
   '''Pickles referencing the numpy module path this numpy does NOT use
   (core vs _core) still load (reference: io.py:242-249).'''
   import numpy as _np
-  from optics_design_workbench_tpu.utils import io as tio
+  from optics_design_workbench.utils import io as tio
   # protocol 0 writes module paths as newline-delimited text (no frame
   # length prefixes), so the rename can be spliced in byte-for-byte
   raw = pickle.dumps(dict(a=_np.arange(4.), b=_np.array([[1, 2]])),
@@ -275,7 +275,7 @@ def test_robust_unpickler_tolerates_numpy_module_rename(tmp_path):
 def test_replay_source_reads_reference_pkl(tmp_path):
   '''ReplaySource replays a folder of reference-written -hits.pkl files
   (reference: replay_source.py:73-113).'''
-  from optics_design_workbench_tpu.models.replay_source import ReplaySource
+  from optics_design_workbench.models.replay_source import ReplaySource
   folder = tmp_path / 'run' / 'source-S' / 'object-D'
   folder.mkdir(parents=True)
   pts = np.array([[0., 0., 0.], [1., 0., 0.]])

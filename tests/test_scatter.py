@@ -9,11 +9,11 @@ import glob
 import numpy as np
 import pytest
 
-from optics_design_workbench_tpu.models import (Scene, PointSource,
-                                                OpticalGroup)
-from optics_design_workbench_tpu.geometry import surfaces as S
-from optics_design_workbench_tpu.geometry import transforms as T
-from optics_design_workbench_tpu import simulation
+from optics_design_workbench.models import (Scene, PointSource,
+                                            OpticalGroup)
+from optics_design_workbench.geometry import surfaces as S
+from optics_design_workbench.geometry import transforms as T
+from optics_design_workbench import simulation
 
 
 def scatterScene(tmp, **mirrorKwargs):
@@ -38,7 +38,7 @@ def scatterScene(tmp, **mirrorKwargs):
 
 
 def loadHits(runPath):
-  from optics_design_workbench_tpu.simulation import results_store as RS
+  from optics_design_workbench.simulation import results_store as RS
   cols = None
   for folder in glob.glob(f'{runPath}/source-*/object-Detector'):
     for f in RS.resultFilePaths(folder, 'hits'):
@@ -139,7 +139,7 @@ def test_scatter_constants_match_gather_path(tmp_path, density, thetaDom,
   tolerance (+ the gather path's own theta_in grid quantization) and the
   histograms must agree closely.'''
   import jax
-  from optics_design_workbench_tpu.tracing import fused, batch_tracer
+  from optics_design_workbench.tracing import fused, batch_tracer
 
   scene = scatterScene(tmp_path,
                        ReflectedProbabilityDensity=density,

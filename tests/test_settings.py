@@ -6,11 +6,11 @@ test/21-simulation-modes worker-count parametrization).
 import numpy as np
 import pytest
 
-from optics_design_workbench_tpu.models import (Scene, SimulationSettings,
-                                                PointSource, OpticalGroup)
-from optics_design_workbench_tpu.geometry import surfaces as S
-from optics_design_workbench_tpu.geometry import transforms as T
-from optics_design_workbench_tpu import simulation
+from optics_design_workbench.models import (Scene, SimulationSettings,
+                                            PointSource, OpticalGroup)
+from optics_design_workbench.geometry import surfaces as S
+from optics_design_workbench.geometry import transforms as T
+from optics_design_workbench import simulation
 
 
 class TestWorkerCount:
@@ -40,7 +40,7 @@ class TestWorkerCount:
                                 WorkerProcessCount=4,
                                 EnableStoreSingleShotData=True)
     runPath = simulation.runSimulation(scene, 'singletrue', seed=1)
-    from optics_design_workbench_tpu.jupyter_utils import RawFolder
+    from optics_design_workbench.jupyter_utils import RawFolder
     hits = RawFolder(runPath).loadHits('D')
     assert len(hits) >= 3900
 
@@ -73,3 +73,12 @@ class TestParsedValues:
     keys = s.enabledMetadataKeys()
     assert 'initphi' in keys and 'fanindex' in keys
     assert 'inittheta' not in keys
+
+
+def test_device_distance_tolerance_floor():
+  '''The float32 device tracers never use a tolerance below 1e-4 mm (a
+  smaller one lets rays re-hit the face they just left); larger settings
+  pass through unchanged.'''
+  assert SimulationSettings().deviceDistanceTolerance() == 1e-4
+  assert SimulationSettings(
+      DistanceTolerance='1e-3').deviceDistanceTolerance() == 1e-3

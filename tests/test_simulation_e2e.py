@@ -12,12 +12,12 @@ import pickle
 import numpy as np
 import pytest
 
-from optics_design_workbench_tpu.models import (Scene, PointSource,
-                                                OpticalGroup,
-                                                SimulationSettings)
-from optics_design_workbench_tpu.geometry import surfaces as S
-from optics_design_workbench_tpu.geometry import transforms as T
-from optics_design_workbench_tpu import simulation
+from optics_design_workbench.models import (Scene, PointSource,
+                                            OpticalGroup,
+                                            SimulationSettings)
+from optics_design_workbench.geometry import surfaces as S
+from optics_design_workbench.geometry import transforms as T
+from optics_design_workbench import simulation
 
 
 @pytest.fixture
@@ -39,7 +39,7 @@ def sceneAndFolder(tmp_path):
 
 
 def loadAllHits(runPath, source='*', obj='*'):
-  from optics_design_workbench_tpu.simulation import results_store as RS
+  from optics_design_workbench.simulation import results_store as RS
   cols = None
   for folder in glob.glob(f'{runPath}/source-{source}/object-{obj}'):
     for f in RS.resultFilePaths(folder, 'hits'):
@@ -151,7 +151,7 @@ class TestFansE2E:
     scene, folder = sceneAndFolder
     scene.getObject('Source').RecordRays = True
     runPath = simulation.runSimulation(scene, 'fans')
-    from optics_design_workbench_tpu.simulation import results_store as RS
+    from optics_design_workbench.simulation import results_store as RS
     rayFiles = RS.resultFilePaths(f'{runPath}/source-Source', 'rays')
     assert rayFiles
     data = RS.loadResultFile(rayFiles[0])
@@ -182,7 +182,7 @@ class TestHistogramFirstRecording:
   not pay the full raw-hit pipeline).'''
 
   def test_histogram_mode_stores_snapshots_and_samples(self, sceneAndFolder):
-    from optics_design_workbench_tpu.simulation import results_store as RS
+    from optics_design_workbench.simulation import results_store as RS
     scene, folder = sceneAndFolder
     runPath = simulation.runSimulation(
         scene, 'true', seed=7, recording='histogram',
@@ -215,7 +215,7 @@ class TestHistogramFirstRecording:
   def test_histogram_matches_raw_counts(self, sceneAndFolder):
     '''Same seed: the device histogram's total count equals the raw path's
     recorded hit count for a single-detector scene.'''
-    from optics_design_workbench_tpu.simulation import results_store as RS
+    from optics_design_workbench.simulation import results_store as RS
     scene, folder = sceneAndFolder
     runPath = simulation.runSimulation(
         scene, 'singletrue', seed=9, recording='histogram', store=True,

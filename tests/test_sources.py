@@ -9,13 +9,13 @@ import os
 import numpy as np
 import pytest
 
-from optics_design_workbench_tpu.models import (Scene, PointSource,
-                                                SurfaceSource, ReplaySource,
-                                                OpticalGroup)
-from optics_design_workbench_tpu.geometry import surfaces as S
-from optics_design_workbench_tpu.geometry import transforms as T
-from optics_design_workbench_tpu import simulation
-from optics_design_workbench_tpu.simulation.lifecycle import SimulationEnded
+from optics_design_workbench.models import (Scene, PointSource,
+                                            SurfaceSource, ReplaySource,
+                                            OpticalGroup)
+from optics_design_workbench.geometry import surfaces as S
+from optics_design_workbench.geometry import transforms as T
+from optics_design_workbench import simulation
+from optics_design_workbench.simulation.lifecycle import SimulationEnded
 
 
 def surfaceScene(tmp, kind='plane'):
@@ -45,7 +45,7 @@ def surfaceScene(tmp, kind='plane'):
 
 
 def loadHits(runPath, obj='Detector'):
-  from optics_design_workbench_tpu.simulation import results_store as RS
+  from optics_design_workbench.simulation import results_store as RS
   cols = None
   for folder in glob.glob(f'{runPath}/source-*/object-{obj}'):
     for f in RS.resultFilePaths(folder, 'hits'):
@@ -138,7 +138,7 @@ class TestReplaySource:
     scene.addSimulationSettings(RaysPerIteration=2000,
                                 EnableStoreSingleShotData=True)
     run1 = simulation.runSimulation(scene, 'singletrue', seed=5)
-    from optics_design_workbench_tpu.simulation import results_store as RS
+    from optics_design_workbench.simulation import results_store as RS
     probeDir = os.path.join(run1, 'source-Src', 'object-Probe')
     assert RS.resultFilePaths(probeDir, 'hits')
 
@@ -172,11 +172,11 @@ class TestReplaySource:
 
 
 def test_fit_piecewise_poly_accuracy():
-  '''_fitPiecewisePoly must reproduce tabulated inverse CDFs (with their
+  '''fitPiecewisePoly must reproduce tabulated inverse CDFs (with their
   sqrt-at-0 and thin-tail boundary layers) to < 5e-3 of the range, and
   give up (None) on a step it cannot fit.'''
-  from optics_design_workbench_tpu.models.point_source import \
-      _fitPiecewisePoly
+  from optics_design_workbench.distributions.device_sampler import \
+      fitPiecewisePoly as _fitPiecewisePoly
   q = np.linspace(0., 1., 4097)
   # gaussian-with-jacobian-like inverse: sqrt at 0, steep tail at 1
   inv = 0.35 * np.sqrt(-np.log1p(-q * (1 - np.exp(-6.))) / 6.)
@@ -205,7 +205,7 @@ def test_old_pickle_gains_new_schema_defaults():
   saved .scene.pkl files survive workbench upgrades, like FreeCAD re-adds
   missing properties on document load.'''
   import pickle
-  from optics_design_workbench_tpu.models import PointSource
+  from optics_design_workbench.models import PointSource
   s = PointSource(Label='x', PowerDensity='1')
   del s.__dict__['ViewColor']            # simulate the pre-upgrade pickle
   s2 = pickle.loads(pickle.dumps(s))

@@ -9,8 +9,8 @@ import os
 
 import numpy as np
 
-from optics_design_workbench_tpu import simulation
-from optics_design_workbench_tpu.jupyter_utils import RawFolder
+from optics_design_workbench import simulation
+from optics_design_workbench.jupyter_utils import RawFolder
 
 _spec = importlib.util.spec_from_file_location(
     'example4', os.path.join(os.path.dirname(os.path.dirname(
@@ -38,7 +38,7 @@ def test_spectral_lines_match_grating_equation(tmp_path):
 
 
 def test_throughput_meter():
-  from optics_design_workbench_tpu.utils.profiling import ThroughputMeter
+  from optics_design_workbench.utils.profiling import ThroughputMeter
   m = ThroughputMeter()
   m.update(rays=1000, segments=4000, hits=900)
   desc = m.description()

@@ -1,5 +1,5 @@
 '''
-Resource-stability tests — the TPU analog of the reference's 14-hour
+Resource-stability tests — the analog of the reference's 14-hour
 memory-leak soak (reference: test/90-memory-leak-check): repeated fused
 steps must not grow device buffers or host memory; repeated runSimulation
 calls must not leak lifecycle state.
@@ -12,10 +12,10 @@ import numpy as np
 import jax
 import pytest
 
-from optics_design_workbench_tpu import benchmarks, simulation
-from optics_design_workbench_tpu.models import Scene, PointSource, OpticalGroup
-from optics_design_workbench_tpu.geometry import surfaces as S
-from optics_design_workbench_tpu.geometry import transforms as T
+from optics_design_workbench import benchmarks, simulation
+from optics_design_workbench.models import Scene, PointSource, OpticalGroup
+from optics_design_workbench.geometry import surfaces as S
+from optics_design_workbench.geometry import transforms as T
 
 
 def test_fused_step_buffer_stability():
@@ -24,7 +24,7 @@ def test_fused_step_buffer_stability():
   as unbounded live_arrays growth).'''
   step, hist, meta = benchmarks.makeBenchStep(raysPerStep=8192,
                                               maxIntersections=4,
-                                              bins=(32, 32), usePallas=False)
+                                              bins=(32, 32))
   key = jax.random.PRNGKey(0)
   hist, counters = step(key, hist)
   jax.block_until_ready(counters)
@@ -85,7 +85,7 @@ def test_continuous_run_rss_soak(tmp_path):
                               ThetaDomain='0, 0.3',
                               ThetaResolutionNumericMode='2e3'))
   scene.addSimulationSettings(RaysPerIteration=20000, EndAfterRays='inf')
-  from optics_design_workbench_tpu.jupyter_utils import Document
+  from optics_design_workbench.jupyter_utils import Document
   t0 = time.time()
   samples = []
 

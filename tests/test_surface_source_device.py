@@ -1,8 +1,6 @@
 '''Surface-source device path: the on-device sampler (deviceGenerator /
 deviceColumnsGenerator) must match the host-numpy reference sampler
-statistically, the in-kernel Pallas sampler must match the shared column
-maths exactly (interpret mode + deterministic-uniform seam), and surface
-sources must take the histogram-first fast path in the runner (reference:
+statistically, and surface sources must take the histogram-first fast path in the runner (reference:
 freecad_elements/surface_source.py:269-555).'''
 
 import os
@@ -12,11 +10,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from optics_design_workbench_tpu.models import Scene, OpticalGroup
-from optics_design_workbench_tpu.models.surface_source import (
-    SurfaceSource, _surfaceSampleColumns)
-from optics_design_workbench_tpu.geometry import surfaces as S
-from optics_design_workbench_tpu.geometry import transforms as T
+from optics_design_workbench.models import Scene, OpticalGroup
+from optics_design_workbench.models.surface_source import (
+                                                           SurfaceSource, _surfaceSampleColumns)
+from optics_design_workbench.geometry import surfaces as S
+from optics_design_workbench.geometry import transforms as T
 
 
 class _Settings:
@@ -94,66 +92,12 @@ def test_device_sampler_stratified_mode():
   assert abs(tT.std() - tF.std()) < 0.01
 
 
-def test_in_kernel_surface_sampler_matches_columns_interpret():
-  '''The Pallas 'surface' sampler branch (interpret mode, uniform seam)
-  must EXACTLY equal the same kernel fed columns computed through the
-  shared _surfaceSampleColumns maths with identical uniforms.'''
-  from optics_design_workbench_tpu.ops import pallas_trace
-  from optics_design_workbench_tpu.tracing import fused
-  from optics_design_workbench_tpu.tracing.batch_tracer import _evalPwpoly
-
-  N, TILE = 1 << 11, 1 << 10
-  scene, src = _emitterScene(kinds=('plane', 'sphere', 'cone'))
-  # a detector shell around the emitter catches every outgoing ray
-  scene.addOpticalGroup(OpticalGroup(
-      OpticalType='Absorber', Label='Shell',
-      surfaces=[S.sphere(np.eye(4), elem=0, radius=200., orient=-1)],
-      placements=[T.translation(0, 0, 10)]))
-  device, info = scene.compile()
-  device['powerTol'] = 1e-6
-  assert pallas_trace.pallasEligible(device)
-  spec = src.pallasSamplerSpec()
-  assert spec is not None and spec['type'] == 'surface'
-  histSpec = fused.makeHistogramSpec(device, info,
-                                     bounds=(-200., 200., -200., 200.),
-                                     bins=(32, 128))
-  key = jax.random.PRNGKey(4)
-  kw = dict(raysPerStep=N, maxIntersections=3, maxRayLength=1e6,
-            distTol=1e-4, interpret=True, tile=TILE)
-  stepS = pallas_trace.makePallasTraceStep(
-      device, histSpec, src.deviceColumnsGenerator(), sampler=spec,
-      uniformProvider='input', **kw)
-  hS, cS = stepS(key, fused.initHistograms(histSpec))
-
-  # recompute the identical uniforms and run them through the SHARED
-  # column maths (draw order contract: face, u, v, theta, phi)
-  us = jax.random.uniform(jax.random.fold_in(key, 0x0177),
-                          (5, N // 128, 128))
-  uF, u, v, uT, uP = (us[i].reshape(-1) for i in range(5))
-  tSpec = spec['theta']
-  theta = _evalPwpoly(tSpec, uT) if tSpec[0] == 'pwpoly' \
-      else tSpec[1] + uT * (tSpec[2] - tSpec[1])
-  cols = _surfaceSampleColumns(spec['faces'], uF, u, v, theta,
-                               uP * (2. * np.pi), spec['wavelength'])
-
-  def columnsGen(k, n, stratified=False):
-    return cols
-
-  stepC = pallas_trace.makePallasTraceStep(device, histSpec, columnsGen,
-                                           **kw)
-  hC, cC = stepC(key, fused.initHistograms(histSpec))
-  # some rays re-hit the emitter's own mirror faces and die within the
-  # bounce budget; ~65% reach the shell — equality is the essential check
-  assert int(cS['hits']) == int(cC['hits']) and int(cS['hits']) > 0.5 * N
-  assert np.array_equal(np.asarray(hS['counts']), np.asarray(hC['counts']))
-
-
 def test_surface_source_takes_histogram_fast_path(tmp_path):
   '''runSimulation(recording='histogram') with a surface source must run
   the on-device fast path (device generator, not host generateRays) and
   produce correct detector counts.'''
-  from optics_design_workbench_tpu.simulation import (runSimulation,
-                                                      results_store)
+  from optics_design_workbench.simulation import (runSimulation,
+                                                  results_store)
 
   scene = Scene(label=str(tmp_path / 'ss'))
   scene.addOpticalGroup(OpticalGroup(
@@ -188,9 +132,9 @@ def test_torus_face_device_host_equivalence():
   the tube angle, and normals outward.'''
   import numpy as np
   import jax
-  from optics_design_workbench_tpu.models import (Scene, SurfaceSource,
-                                                  OpticalGroup)
-  from optics_design_workbench_tpu.geometry import surfaces as S
+  from optics_design_workbench.models import (Scene, SurfaceSource,
+                                              OpticalGroup)
+  from optics_design_workbench.geometry import surfaces as S
 
   R0, rT = 20., 5.
   scene = Scene(label='torussrc')

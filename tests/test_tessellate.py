@@ -8,10 +8,10 @@ file (the headless analog of the reference's OCC-tessellated 3D view).
 import numpy as np
 import pytest
 
-from optics_design_workbench_tpu.geometry import surfaces as S
-from optics_design_workbench_tpu.geometry import transforms as T
-from optics_design_workbench_tpu.geometry.tessellate import (
-    tessellateSurface, tessellateScene, writeScenePLY)
+from optics_design_workbench.geometry import surfaces as S
+from optics_design_workbench.geometry import transforms as T
+from optics_design_workbench.geometry.tessellate import (
+                                                         tessellateSurface, tessellateScene, writeScenePLY)
 
 
 def surfaceResidual(surf, verts):
@@ -112,8 +112,8 @@ class TestTrims:
 class TestSceneExport:
 
   def makeScene(self, tmp_path):
-    from optics_design_workbench_tpu.models import (Scene, PointSource,
-                                                    OpticalGroup)
+    from optics_design_workbench.models import (Scene, PointSource,
+                                                OpticalGroup)
     scene = Scene(label='tess', path=str(tmp_path / 'tess'))
     scene.addOpticalGroup(OpticalGroup(
         OpticalType='Mirror', Label='M', ViewColor=(0., 1., 0.),
@@ -138,8 +138,8 @@ class TestSceneExport:
 
   def test_write_scene_ply_with_rays(self, tmp_path):
     scene = self.makeScene(tmp_path)
-    from optics_design_workbench_tpu import simulation
-    from optics_design_workbench_tpu.simulation.draw import DrawnRays
+    from optics_design_workbench import simulation
+    from optics_design_workbench.simulation.draw import DrawnRays
     drawn = DrawnRays()
     simulation.runSimulation(scene, 'singletrue', draw=drawn, seed=1,
                              store=False)

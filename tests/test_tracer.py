@@ -9,9 +9,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from optics_design_workbench_tpu.geometry import transforms as T
-from optics_design_workbench_tpu.geometry import surfaces as S
-from optics_design_workbench_tpu import tracing as TR
+from optics_design_workbench.geometry import transforms as T
+from optics_design_workbench.geometry import surfaces as S
+from optics_design_workbench import tracing as TR
 
 
 def scene(surfs, elems, **extra):
